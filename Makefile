@@ -1,12 +1,16 @@
 # Developer entry points.
-.PHONY: native test bench wheel clean
+.PHONY: native test smoke bench wheel clean
 
+# Build both native host modules for this machine (keyed under native/.build).
 native:
-	g++ -O3 -std=c++17 -shared -fPIC -march=native \
-	    -o native/libtpuss.so native/sais.cpp
+	python -c 'from pysubstringsearch_jax.ops import native; native.require()'
 
 test:
 	python -m pytest tests/ -x -q
+
+# End-to-end run on one NVIDIA GPU (exits non-zero without one).
+smoke:
+	python chip_smoke.py
 
 bench:
 	python bench.py
@@ -15,5 +19,4 @@ wheel:
 	python -m build
 
 clean:
-	rm -f native/libtpuss.so
-	rm -rf build dist *.egg-info
+	rm -rf native/.build build dist *.egg-info

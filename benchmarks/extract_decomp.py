@@ -5,7 +5,8 @@ container: per source chunk — native bisection probe, SA gather,
 line-id resolution, per-query dedup, native str fan-out — each stage
 timed separately, at bench scale (10k patterns, ~22M result lines).
 
-Run: python benchmarks/extract_decomp.py [idx_path]
+Run: python benchmarks/extract_decomp.py IDX_PATH  (e.g. a container
+written by bench.py with BENCH_IDX_CACHE set)
 """
 
 import os
@@ -23,12 +24,11 @@ def log(*a):
 
 
 def main():
-    idx_path = sys.argv[1] if len(sys.argv) > 1 else \
-        '/dev/shm/benchcache/bench-500mb-64chunk/bench.idx'
-    from pysubstringsearch_tpu import container
-    from pysubstringsearch_tpu.ops import native as native_ops
-    from pysubstringsearch_tpu.ops.extract import LineTable
-    from pysubstringsearch_tpu.ops.search import pack_patterns
+    idx_path = sys.argv[1]
+    from pysubstringsearch_jax import container
+    from pysubstringsearch_jax.ops import native as native_ops
+    from pysubstringsearch_jax.ops.extract import LineTable
+    from pysubstringsearch_jax.ops.search import pack_patterns
 
     t0 = time.time()
     chunks = container.read_chunks(idx_path)
@@ -47,7 +47,7 @@ def main():
     packed, lengths = pack_patterns(pats)
     del corpus
 
-    # Merged-row geometry: 4 chunks per row (matches TPUSS_MERGE_CAP 256MiB
+    # Merged-row geometry: 4 chunks per row (matches PSS_MERGE_CAP 256MiB
     # over 64MiB chunks).
     per_row = int(os.environ.get('ROW_CHUNKS', '4'))
     groups = [list(range(i, min(i + per_row, len(chunks))))

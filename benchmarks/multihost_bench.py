@@ -7,7 +7,7 @@ distributed form of the reference's rayon fan-out + mutex merge
 (reference: src/lib.rs:205-284), which has no multi-process analogue.
 
 Run on one machine with N co-located processes over the jax.distributed
-coordinator (the same code path a real N-host TPU pod uses; here the
+coordinator (the same code path a real N-host cluster uses; here the
 "DCN" is loopback, so the numbers are indicative of protocol overhead,
 not of real cross-host bandwidth):
 
@@ -39,7 +39,7 @@ jax.distributed.initialize(
     process_id=pid,
 )
 from bench import make_corpus
-from pysubstringsearch_tpu.parallel import manifest, multihost
+from pysubstringsearch_jax.parallel import manifest, multihost
 
 # Touch the backend on EVERY process before any divergent work: multi-
 # process backend init is a collective (local-topology exchange), so a

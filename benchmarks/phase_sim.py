@@ -4,8 +4,8 @@ Computes, for the exact corpus/pattern distribution bench.py uses, the
 per-phase tie-range widths and the iteration counts a phased probe would
 need under three midpoint policies: pure binary, alternating
 binary/interpolated, and interpolation-with-binary-guard.  The probe's
-device cost is iterations x 13ns x 2B x C (measured: gather_sweep), so this
-decides the midpoint policy before any TPU code is written.
+device cost scales with iterations x 2B x C gathers, so this decides the
+midpoint policy from host arithmetic alone.
 """
 
 import math

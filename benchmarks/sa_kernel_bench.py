@@ -1,9 +1,9 @@
 """Single-core native SA kernel benchmark on the bench corpus.
 
 Builds one 64 MiB chunk of the canonical bench corpus and times
-tpuss_build_sa_u8 (best of N reps), printing MB/s and, with
-TPUSS_SA_PROFILE=1, the kernel's own phase table.  Used for the
-fused-naming A/B (VERDICT r4 item 2).
+pss_build_sa_u8 (best of N reps), printing MB/s and, with
+PSS_SA_PROFILE=1, the kernel's own phase table.  Used for A/B work on
+native/sais.cpp.
 """
 import ctypes
 import os
@@ -23,9 +23,9 @@ data = np.frombuffer(corpus[: MB * 1024 * 1024], dtype=np.uint8).copy()
 n = data.shape[0]
 
 lib = ctypes.CDLL(os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), 'native', 'libtpuss.so'))
-lib.tpuss_build_sa_u8.restype = ctypes.c_int32
-lib.tpuss_build_sa_u8.argtypes = [
+    os.path.abspath(__file__))), 'native', 'libpss.so'))
+lib.pss_build_sa_u8.restype = ctypes.c_int32
+lib.pss_build_sa_u8.argtypes = [
     ctypes.POINTER(ctypes.c_uint8), ctypes.c_int32,
     ctypes.POINTER(ctypes.c_int32)]
 
@@ -36,7 +36,7 @@ sptr = sa.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
 best = 1e9
 for r in range(REPS):
     t0 = time.perf_counter()
-    rc = lib.tpuss_build_sa_u8(dptr, n, sptr)
+    rc = lib.pss_build_sa_u8(dptr, n, sptr)
     dt = time.perf_counter() - t0
     assert rc == 0, rc
     best = min(best, dt)

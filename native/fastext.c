@@ -286,7 +286,7 @@ static PyMethodDef methods[] = {
 
 static struct PyModuleDef moduledef = {
     PyModuleDef_HEAD_INIT, "_fastext",
-    "Native batch line materialization for pysubstringsearch_tpu.", -1,
+    "Native batch line materialization for pysubstringsearch_jax.", -1,
     methods,
 };
 

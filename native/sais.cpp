@@ -62,9 +62,9 @@ using u16 = uint16_t;
 
 constexpr i32 PFD = 64;  // prefetch lead for data-dependent reads
 
-// Phase timing to stderr when TPUSS_SA_PROFILE is set (diagnostic only).
+// Phase timing to stderr when PSS_SA_PROFILE is set (diagnostic only).
 bool sa_profile() {
-  static const bool on = std::getenv("TPUSS_SA_PROFILE") != nullptr;
+  static const bool on = std::getenv("PSS_SA_PROFILE") != nullptr;
   return on;
 }
 
@@ -1345,7 +1345,7 @@ extern "C" {
 
 // Suffix array of a byte string; returns 0 on success.  sa_out must hold n
 // int32 slots.  Convention: prefix-before-extension (see header comment).
-i32 tpuss_build_sa_u8(const uint8_t* data, i32 n, i32* sa_out) {
+i32 pss_build_sa_u8(const uint8_t* data, i32 n, i32* sa_out) {
   if (n < 0) return -1;
   if (n == 0) return 0;
   advise_huge(sa_out, static_cast<size_t>(n) * sizeof(i32));
@@ -1356,7 +1356,7 @@ i32 tpuss_build_sa_u8(const uint8_t* data, i32 n, i32* sa_out) {
 // Suffix array of an int32 string with values in [0, k) — the analogue of
 // the reference kernel's integer-alphabet entry point (libsais_int,
 // reference src/libsais/libsais.c:6612-6625).  Returns 0 on success.
-i32 tpuss_build_sa_i32(const i32* data, i32 n, i32 k, i32* sa_out) {
+i32 pss_build_sa_i32(const i32* data, i32 n, i32 k, i32* sa_out) {
   if (n < 0 || k <= 0 || k > 0x3FFFFFFE) return -1;
   if (n == 0) return 0;
   Buf st_b(sizeof(i32) * (static_cast<size_t>(n) + 1));
@@ -1380,7 +1380,7 @@ i32 tpuss_build_sa_i32(const i32* data, i32 n, i32 k, i32* sa_out) {
 // src/libsais/libsais.c:7551-7638): u is the BWT column with the sentinel
 // row removed, primary_index its removed position.  Sequential LF walk —
 // exactly the pointer-chase the device cannot vectorize, so it lives here.
-i32 tpuss_unbwt(const uint8_t* u, i32 n, i32 primary_index, uint8_t* out) {
+i32 pss_unbwt(const uint8_t* u, i32 n, i32 primary_index, uint8_t* out) {
   if (n < 0 || primary_index < 1 || primary_index > n) return -1;
   if (n == 0) return 0;
   std::vector<i32> lf(static_cast<size_t>(n));
@@ -1409,7 +1409,7 @@ i32 tpuss_unbwt(const uint8_t* u, i32 n, i32 primary_index, uint8_t* out) {
 // Mirrors the reference Reader's per-chunk binary searches
 // (src/lib.rs:212-252) but over in-RAM arrays and a whole pattern batch.
 // pats is [B, stride] zero-padded row-major; writes lo_out/cnt_out [B].
-i32 tpuss_probe_batch(const uint8_t* data, i32 n, const i32* sa,
+i32 pss_probe_batch(const uint8_t* data, i32 n, const i32* sa,
                       const uint8_t* pats, const i32* lens, i32 stride,
                       i32 B, i32* lo_out, i32* cnt_out) {
   if (n < 0 || B < 0 || stride < 0) return -1;
@@ -1454,7 +1454,7 @@ i32 tpuss_probe_batch(const uint8_t* data, i32 n, const i32* sa,
 
 // Newline-position scan used by index load (vectorizable memchr analogue).
 // Writes at most cap positions; returns the total newline count.
-i32 tpuss_find_newlines(const uint8_t* data, i32 n, i32* out, i32 cap) {
+i32 pss_find_newlines(const uint8_t* data, i32 n, i32* out, i32 cap) {
   i32 count = 0;
   for (i32 i = 0; i < n; ++i) {
     if (data[i] == 0x0A) {
@@ -1478,7 +1478,7 @@ static inline i32 ld32u(const i32* p) {
 }
 
 // One (chunk, pattern) lower/upper-bound pair.  Same comparison convention
-// as tpuss_probe_batch (mirroring the reference Reader's binary searches,
+// as pss_probe_batch (mirroring the reference Reader's binary searches,
 // src/lib.rs:212-252) plus the upper-bound seeding the reference applies
 // with its left_anchor reuse (src/lib.rs:235-252): every lower-bound
 // iteration that observed a suffix STRICTLY greater than the pattern is a
@@ -1559,7 +1559,7 @@ extern "C" {
 // zero-padded row-major.  Writes lo_out/cnt_out as [nchunks, B] row-major.
 // nthreads > 1 fans (chunk, pattern) blocks across a transient pool; pass 1
 // for latency-bound single queries.
-i32 tpuss_probe_multi(i32 nchunks, const uint8_t* const* datas, const i32* ns,
+i32 pss_probe_multi(i32 nchunks, const uint8_t* const* datas, const i32* ns,
                       const i32* const* sas, const uint8_t* pats,
                       const i32* lens, i32 stride, i32 B, i32* lo_out,
                       i32* cnt_out, i32 nthreads) {
@@ -1584,7 +1584,7 @@ i32 tpuss_probe_multi(i32 nchunks, const uint8_t* const* datas, const i32* ns,
 
 // Resolve probe hits to DEDUPLICATED line spans, in global container
 // coordinates.  For each (chunk, pattern) cell of lo/cnt ([nchunks, B]
-// row-major, as produced by tpuss_probe_multi): gather the SA slice, walk
+// row-major, as produced by pss_probe_multi): gather the SA slice, walk
 // each hit to its line start (backward memrchr — the reference's FinderRev,
 // src/lib.rs:262-270), dedup by line-start offset (the reference's AHashSet
 // on start offsets, src/lib.rs:271-277), and emit (start, end) pairs with
@@ -1593,7 +1593,7 @@ i32 tpuss_probe_multi(i32 nchunks, const uint8_t* const* datas, const i32* ns,
 // the deduplicated span count (<= cnt[u], so out_base = exclusive prefix
 // sums of cnt always fits).  A chunk whose text lacks a trailing newline
 // truncates its final line's last byte (reference quirk, src/lib.rs:268-270).
-i32 tpuss_extract_spans(i32 nchunks, const uint8_t* const* datas,
+i32 pss_extract_spans(i32 nchunks, const uint8_t* const* datas,
                         const i32* ns, const i32* const* sas,
                         const int64_t* text_offs, const i32* lo,
                         const i32* cnt, i32 B, const int64_t* out_base,

@@ -1,45 +1,33 @@
-"""Build glue: compiles the native host kernel into the wheel.
+"""Build glue: ships the native host kernels' sources inside the package.
 
 The reference's equivalent layer is `build.rs` (cc-crate compile of its C
 kernel, reference build.rs:4-10) + maturin packaging (reference
-pyproject.toml:1-11).  Here `build_native` compiles `native/sais.cpp` with
-g++ into `pysubstringsearch_tpu/_native/libtpuss.so`, which the ctypes
-loader (`pysubstringsearch_tpu/ops/native.py`) probes first.  The build is
-best-effort: without a C++ toolchain the wheel is still functional (numpy /
-JAX suffix-array backends take over).
+pyproject.toml:1-11).  Here `native/sais.cpp` and `native/fastext.c` are
+copied into `pysubstringsearch_jax/_native/`; the loader
+(`pysubstringsearch_jax/ops/native.py`) compiles them on first use on the
+machine that loads them, keyed by source, command and CPU flags, so a wheel
+never carries a library built for another CPU.  Without a compiler the
+numpy / JAX backends take over.
 """
 
 import os
-import subprocess
 
 from setuptools import setup
 from setuptools.command.build_py import build_py
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SRC = os.path.join(HERE, 'native', 'sais.cpp')
-FASTEXT_SRC = os.path.join(HERE, 'native', 'fastext.c')
 
 
 class BuildPyWithNative(build_py):
     def run(self):
         super().run()
         dest_dir = os.path.join(
-            self.build_lib, 'pysubstringsearch_tpu', '_native'
+            self.build_lib, 'pysubstringsearch_jax', '_native'
         )
         os.makedirs(dest_dir, exist_ok=True)
-        dest_src = os.path.join(dest_dir, 'sais.cpp')
-        self.copy_file(SRC, dest_src)
-        dest_so = os.path.join(dest_dir, 'libtpuss.so')
-        cmd = ['g++', '-O3', '-std=c++17', '-shared', '-fPIC', '-o', dest_so, SRC]
-        try:
-            subprocess.run(cmd, check=True, timeout=600)
-        except (OSError, subprocess.SubprocessError) as exc:
-            print(f'warning: native kernel build skipped ({exc}); '
-                  f'runtime will fall back to numpy/JAX backends')
-        # Ship the CPython materialization extension source alongside (the
-        # runtime loader compiles it against the interpreter in use; a
-        # pre-built .so would pin one CPython ABI).
-        self.copy_file(FASTEXT_SRC, os.path.join(dest_dir, 'fastext.c'))
+        for name in ('sais.cpp', 'fastext.c'):
+            self.copy_file(os.path.join(HERE, 'native', name),
+                           os.path.join(dest_dir, name))
 
 
 setup(cmdclass={'build_py': BuildPyWithNative})

@@ -1,4 +1,4 @@
-"""Background device load + host serving (the slow-link TTFQ architecture).
+"""Background device load + host serving (the time-to-first-query design).
 
 While the device index derives on a background thread, the Reader answers
 queries from the container's per-chunk SAs via the native host bisection —
@@ -13,8 +13,8 @@ import threading
 
 import pytest
 
-import pysubstringsearch_tpu as pss
-from pysubstringsearch_tpu.api import Reader
+import pysubstringsearch_jax as pss
+from pysubstringsearch_jax.api import Reader
 
 WORDS = [
     'apple', 'apricot', 'banana', 'cherry', 'cherrypie',
@@ -49,7 +49,7 @@ def test_host_chunks_path_matches_device_path(index_path):
 
 
 def test_background_load_serves_before_and_after_ready(index_path, monkeypatch):
-    monkeypatch.setenv('TPUSS_BG_LOAD', '1')
+    monkeypatch.setenv('PSS_BG_LOAD', '1')
     release = threading.Event()
     orig = Reader._build_device_index
 
@@ -74,7 +74,9 @@ def test_background_load_serves_before_and_after_ready(index_path, monkeypatch):
 
 
 def test_background_load_failure_degrades_to_host(index_path, monkeypatch):
-    monkeypatch.setenv('TPUSS_BG_LOAD', '1')
+    """A failed device load is not hidden behind the host path: once the
+    load has ended, search and wait_device_ready raise its error."""
+    monkeypatch.setenv('PSS_BG_LOAD', '1')
 
     def broken_build(self):
         raise RuntimeError('simulated device failure')
@@ -83,14 +85,17 @@ def test_background_load_failure_degrades_to_host(index_path, monkeypatch):
     r = pss.Reader(index_path)
     r._device_ready.wait(10.0)
     assert not r.device_ready
-    # Queries still answered (host path), exception surfaced on _index.
-    assert sorted(r.search('grape')) == sorted(ground_truth('grape'))
+    with pytest.raises(RuntimeError, match='device index load failed') as e:
+        r.search('grape')
+    assert 'simulated device failure' in str(e.value.__cause__)
+    with pytest.raises(RuntimeError, match='device index load failed'):
+        r.wait_device_ready(1.0)
     with pytest.raises(RuntimeError):
         _ = r._index
 
 
 def test_bg_load_disabled_by_env(index_path, monkeypatch):
-    monkeypatch.setenv('TPUSS_BG_LOAD', '0')
+    monkeypatch.setenv('PSS_BG_LOAD', '0')
     r = pss.Reader(index_path)
     assert r._bg_thread is None
     assert sorted(r.search('berry')) == sorted(ground_truth('berry'))

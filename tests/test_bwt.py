@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pysubstringsearch_tpu.ops import native
-from pysubstringsearch_tpu.ops.bwt import (
+from pysubstringsearch_jax.ops import native
+from pysubstringsearch_jax.ops.bwt import (
     bwt,
     bwt_aux,
     bwt_from_sa,
@@ -18,7 +18,7 @@ from pysubstringsearch_tpu.ops.bwt import (
     unbwt_aux,
     _unbwt_numpy,
 )
-from pysubstringsearch_tpu.ops.suffix_array import (
+from pysubstringsearch_jax.ops.suffix_array import (
     suffix_array_int,
     suffix_array_numpy,
 )

@@ -3,7 +3,7 @@
 import io
 import contextlib
 
-from pysubstringsearch_tpu.__main__ import main
+from pysubstringsearch_jax.__main__ import main
 
 
 def test_cli_roundtrip(tmp_path):
@@ -24,7 +24,7 @@ def test_cli_roundtrip(tmp_path):
 
     shard_dir = str(tmp_path / 'shards')
     assert main(['shard', idx, shard_dir, '--shards', '2']) == 0
-    from pysubstringsearch_tpu.parallel import manifest
+    from pysubstringsearch_jax.parallel import manifest
 
     r = manifest.open_local_reader(shard_dir)
     assert sorted(r.search('red')) == ['red apple', 'red rose']

@@ -10,11 +10,11 @@ import os
 
 import pytest
 
-import pysubstringsearch_tpu as pss
+import pysubstringsearch_jax as pss
 
 
 def roundtrip(tmp_path, entries, max_chunk_len=None):
-    path = str(tmp_path / 'index.tpuss')
+    path = str(tmp_path / 'index.pss')
     writer = pss.Writer(path, max_chunk_len=max_chunk_len)
     for entry in entries:
         writer.add_entry(entry)
@@ -251,8 +251,8 @@ class TestLongPatternHostRoute:
         multiset as ground truth, while the REST of a mixed batch still
         answers correctly (an oversized straggler must not poison the
         batch)."""
-        import pysubstringsearch_tpu as pss
-        from pysubstringsearch_tpu.ops.search import PAD_MARGIN
+        import pysubstringsearch_jax as pss
+        from pysubstringsearch_jax.ops.search import PAD_MARGIN
 
         long_body = 'ab' * (PAD_MARGIN // 2 + 40)
         lines = [f'{long_body} tail{i}' for i in range(3)]

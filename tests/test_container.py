@@ -7,8 +7,8 @@ import struct
 import numpy as np
 import pytest
 
-import pysubstringsearch_tpu as pss
-from pysubstringsearch_tpu import container
+import pysubstringsearch_jax as pss
+from pysubstringsearch_jax import container
 
 # Index of entries ['abc', 'ab']: text b'abc\nab\n', SA computed by hand
 # (bytewise order, prefix-before-extension): [6, 3, 4, 0, 5, 1, 2].

@@ -35,9 +35,9 @@ import struct
 import numpy as np
 import pytest
 
-import pysubstringsearch_tpu as pss
-from pysubstringsearch_tpu import container
-from pysubstringsearch_tpu.ops.suffix_array import suffix_array_numpy
+import pysubstringsearch_jax as pss
+from pysubstringsearch_jax import container
+from pysubstringsearch_jax.ops.suffix_array import suffix_array_numpy
 
 
 def _corpus(seed: int, nlines: int):
@@ -185,8 +185,8 @@ def test_container_bytes_match_reference_format(built_index):
 
 def test_sharded_and_multihost_agree_with_reader(built_index, tmp_path):
     path, lines, words = built_index
-    from pysubstringsearch_tpu.parallel import manifest, multihost
-    from pysubstringsearch_tpu.parallel.reader import ShardedReader
+    from pysubstringsearch_jax.parallel import manifest, multihost
+    from pysubstringsearch_jax.parallel.reader import ShardedReader
 
     r = pss.Reader(path)
     sr = ShardedReader(path)

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from pysubstringsearch_tpu.ops.extract import LineTable
-from pysubstringsearch_tpu.ops.suffix_array import suffix_array_numpy
+from pysubstringsearch_jax.ops.extract import LineTable
+from pysubstringsearch_jax.ops.suffix_array import suffix_array_numpy
 
 
 def _make_chunk(seed, nlines=200):

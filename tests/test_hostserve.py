@@ -20,14 +20,14 @@ import os
 import numpy as np
 import pytest
 
-import pysubstringsearch_tpu as pss
-from pysubstringsearch_tpu import container
-from pysubstringsearch_tpu.ops import native as native_ops
-from pysubstringsearch_tpu.ops.hostserve import HostServing
-from pysubstringsearch_tpu.ops.suffix_array import suffix_array_numpy
+import pysubstringsearch_jax as pss
+from pysubstringsearch_jax import container
+from pysubstringsearch_jax.ops import native as native_ops
+from pysubstringsearch_jax.ops.hostserve import HostServing
+from pysubstringsearch_jax.ops.suffix_array import suffix_array_numpy
 
 pytestmark = pytest.mark.skipif(
-    not native_ops.probe_batch_available(),
+    not native_ops.available(),
     reason='native kernels unavailable',
 )
 
@@ -151,7 +151,7 @@ def test_materialize_dedup_fast_paths():
     unchanged), and the ASCII direct-copy decode must fall back to the
     full UTF-8 decoder for non-ASCII spans (native/fastext.c
     decode_line)."""
-    from pysubstringsearch_tpu.ops import native as native_ops
+    from pysubstringsearch_jax.ops import native as native_ops
 
     fx = native_ops.fastext()
     if fx is None:

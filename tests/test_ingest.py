@@ -12,8 +12,8 @@ import tempfile
 import numpy as np
 import pytest
 
-import pysubstringsearch_tpu as pss
-from pysubstringsearch_tpu import container
+import pysubstringsearch_jax as pss
+from pysubstringsearch_jax import container
 
 
 def _build_reference_semantics(path: str, raw: bytes, max_chunk_len):

@@ -7,9 +7,9 @@ import os
 
 import pytest
 
-import pysubstringsearch_tpu as pss
-from pysubstringsearch_tpu import container
-from pysubstringsearch_tpu.parallel import manifest
+import pysubstringsearch_jax as pss
+from pysubstringsearch_jax import container
+from pysubstringsearch_jax.parallel import manifest
 
 
 ENTRIES = [f'word-{i:03d} alpha' if i % 3 else f'word-{i:03d} beta'

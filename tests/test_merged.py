@@ -18,13 +18,13 @@ import tempfile
 import numpy as np
 import pytest
 
-import pysubstringsearch_tpu as pss
-from pysubstringsearch_tpu.container import Chunk
-from pysubstringsearch_tpu.models.index import DeviceIndex
-from pysubstringsearch_tpu.ops import native as native_ops
-from pysubstringsearch_tpu.ops import search as search_ops
-from pysubstringsearch_tpu.ops.search import pack_patterns
-from pysubstringsearch_tpu.ops.suffix_array import suffix_array_numpy
+import pysubstringsearch_jax as pss
+from pysubstringsearch_jax.container import Chunk
+from pysubstringsearch_jax.models.index import DeviceIndex
+from pysubstringsearch_jax.ops import native as native_ops
+from pysubstringsearch_jax.ops import search as search_ops
+from pysubstringsearch_jax.ops.search import pack_patterns
+from pysubstringsearch_jax.ops.suffix_array import suffix_array_numpy
 
 
 def _mk_chunks(bodies):
@@ -60,7 +60,7 @@ def _body(nlines, seed):
 
 
 def test_grouping_respects_cap(monkeypatch):
-    monkeypatch.setenv('TPUSS_MERGE_CAP', '9000')
+    monkeypatch.setenv('PSS_MERGE_CAP', '9000')
     chunks = _mk_chunks([_body(40, i) for i in range(5)])
     idx = DeviceIndex(chunks, mode='derive')
     assert idx.merged
@@ -125,7 +125,7 @@ def _reader_for(tmp, bodies, index_mode='derive'):
     with open(path, 'wb') as f:
         for body in bodies:
             data = np.frombuffer(body, dtype=np.uint8)
-            from pysubstringsearch_tpu import container as cont
+            from pysubstringsearch_jax import container as cont
             cont.write_chunk(f, data, suffix_array_numpy(data))
     return pss.Reader(path, index_mode=index_mode)
 
@@ -134,9 +134,12 @@ def _reader_for(tmp, bodies, index_mode='derive'):
 def test_reader_merged_end_to_end(route, tmp_path, monkeypatch):
     """search()/search_multiple() over a merged derive index match ground
     truth through both extraction routes."""
+    # Pin the extraction route: the per-hit cost of the device route's
+    # line extraction decides it (Reader._host_route_cheaper).
+    monkeypatch.setattr(pss.api.Reader, '_DEVICE_ROUTE_HIT_S',
+                        1.0 if route == 'host' else 0.0)
     if route == 'host':
-        monkeypatch.setattr(pss.api.Reader, '_READBACK_CAP', 0)
-        if not native_ops.probe_batch_available():
+        if not native_ops.available():
             pytest.skip('native probe_batch unavailable')
     bodies = [_body(80, 11), _body(80, 12), _body(80, 13)]
     r = _reader_for(str(tmp_path), bodies)
@@ -154,6 +157,23 @@ def test_reader_merged_end_to_end(route, tmp_path, monkeypatch):
     assert len(multi) == sum(
         sum(p in l for l in all_lines) for p in [pats[0], pats[1]]
     ) + 0 + len(all_lines) + sum(pats[4] in l for l in all_lines)
+
+
+@pytest.mark.parametrize('hit_s', [0.0, 1.0], ids=['device', 'host'])
+def test_reader_merged_newline_pattern_routes(hit_s, tmp_path, monkeypatch):
+    """Both extraction routes agree on \\n-containing patterns: the device
+    flat-gather drops boundary-crossing occurrences by position, the host
+    pipeline never sees them."""
+    monkeypatch.setattr(pss.api.Reader, '_DEVICE_ROUTE_HIT_S', hit_s)
+    r = _reader_for(str(tmp_path), [b'alpha\nbravo\n', b'bravo\ncharlie\n'])
+    assert r._index.merged
+    before = r.profiler.counts.get('x-dev-gather', 0)
+    assert r.search('bravo\nbravo') == []
+    assert sorted(r.search('alpha\nbravo')) == ['alpha']
+    assert sorted(r.search_multiple(['a\nb', 'o\nc', 'o\nb'])) == [
+        'alpha', 'bravo']
+    used = r.profiler.counts.get('x-dev-gather', 0) > before
+    assert used == (hit_s == 0.0)
 
 
 def test_reader_merged_newline_pattern_end_to_end(tmp_path):
@@ -183,7 +203,7 @@ def test_oversized_pattern_does_not_poison_batch(tmp_path):
 
 
 def test_native_probe_batch_matches_python_oracle():
-    if not native_ops.probe_batch_available():
+    if not native_ops.available():
         pytest.skip('native probe_batch unavailable')
     body = _body(200, 31)
     data = np.frombuffer(body, dtype=np.uint8)

@@ -2,7 +2,7 @@
 join a TCP coordinator, probe their chunk shard, and allgather counts.
 
 This is the harness the reference never had (SURVEY.md §4: no multi-node
-testing exists there); it validates the multihost glue without a TPU pod.
+testing exists there); it validates the multihost glue without a cluster of accelerators.
 """
 
 import os
@@ -23,9 +23,9 @@ jax.distributed.initialize(
     num_processes=2,
     process_id=pid,
 )
-from pysubstringsearch_tpu.ops.search import pack_patterns, probe_bounds
-from pysubstringsearch_tpu.ops.suffix_array import suffix_array_numpy
-from pysubstringsearch_tpu.parallel import multihost
+from pysubstringsearch_jax.ops.search import pack_patterns, probe_bounds
+from pysubstringsearch_jax.ops.suffix_array import suffix_array_numpy
+from pysubstringsearch_jax.parallel import multihost
 import jax.numpy as jnp
 
 # 4 chunks round-robined over 2 processes
@@ -115,7 +115,7 @@ jax.distributed.initialize(
     num_processes=%NPROC%,
     process_id=pid,
 )
-from pysubstringsearch_tpu.parallel import manifest, multihost
+from pysubstringsearch_jax.parallel import manifest, multihost
 
 rng = np.random.default_rng(7)
 words = [

@@ -11,7 +11,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from pysubstringsearch_tpu.ops.search import (
+from pysubstringsearch_jax.ops.search import (
     PAD_MARGIN,
     RAW_LIMBS,
     alphabet_rank,
@@ -27,7 +27,7 @@ from pysubstringsearch_tpu.ops.search import (
     probe_bounds_phased,
     raw_cover_bytes,
 )
-from pysubstringsearch_tpu.ops.suffix_array import (
+from pysubstringsearch_jax.ops.suffix_array import (
     _pad_len,
     suffix_array_numpy,
 )
@@ -183,7 +183,7 @@ def test_seed_table_builders_agree():
     )
     np.testing.assert_array_equal(dev, host)
     # identity-rank base-258 must reproduce the legacy digit table.
-    from pysubstringsearch_tpu.ops.search import build_bucket_table_host
+    from pysubstringsearch_jax.ops.search import build_bucket_table_host
     irank, _ = identity_rank()
     np.testing.assert_array_equal(
         build_seed_table_host(data, sa, irank, 258, 2),
@@ -220,8 +220,8 @@ def test_device_index_kind_selection_and_fallback():
     rank-packed limbs, big NUL-free alphabets raw 4-byte packing, big
     alphabets containing NUL the base-258 digit fallback — and every kind
     must produce brute-force-exact counts, both load modes."""
-    from pysubstringsearch_tpu.container import Chunk
-    from pysubstringsearch_tpu.models.index import DeviceIndex
+    from pysubstringsearch_jax.container import Chunk
+    from pysubstringsearch_jax.models.index import DeviceIndex
 
     rng = np.random.default_rng(3)
     clean = rng.integers(97, 123, size=4000, dtype=np.uint8)
@@ -261,7 +261,7 @@ def test_ranked_limbs_match_brute_force(sigma_hi):
     """Rank-packed limbs (5/6-bit digits, 6/5 bytes per int32): brute-force
     parity including NUL text bytes, absent-byte patterns at collision
     positions, and every phase-count boundary."""
-    from pysubstringsearch_tpu.ops.search import (
+    from pysubstringsearch_jax.ops.search import (
         build_ranked_limbs_device,
         build_ranked_limbs_host,
         ranked_bits,

@@ -9,7 +9,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from pysubstringsearch_tpu.ops.search import (
+from pysubstringsearch_jax.ops.search import (
     KEY_LIMBS,
     PAD_MARGIN,
     build_bucket_table,
@@ -22,7 +22,7 @@ from pysubstringsearch_tpu.ops.search import (
     probe_bounds,
     probe_bounds_limbs_loop,
 )
-from pysubstringsearch_tpu.ops.suffix_array import suffix_array_numpy, _pad_len
+from pysubstringsearch_jax.ops.suffix_array import suffix_array_numpy, _pad_len
 
 
 def brute_counts(data: bytes, patterns):
@@ -172,9 +172,9 @@ def test_limb_probe_truncated_gather_widths(width):
 def test_device_index_derive_matches_upload():
     """'derive' mode (text-only upload, SA/limbs/tables rebuilt on device)
     must be state- and result-identical to 'upload' mode."""
-    from pysubstringsearch_tpu.container import Chunk
-    from pysubstringsearch_tpu.models.index import DeviceIndex
-    from pysubstringsearch_tpu.ops.search import pack_patterns
+    from pysubstringsearch_jax.container import Chunk
+    from pysubstringsearch_jax.models.index import DeviceIndex
+    from pysubstringsearch_jax.ops.search import pack_patterns
 
     rng = np.random.default_rng(23)
     chunks = []
@@ -212,7 +212,7 @@ def test_device_index_derive_matches_upload():
 def test_device_table_and_limbs_match_host():
     """Device scatter-min bucket table and rolled-digit limb builder equal
     their host (numpy) twins on adversarial bytes (0x00, 0xff, newlines)."""
-    from pysubstringsearch_tpu.ops.search import (
+    from pysubstringsearch_jax.ops.search import (
         build_bucket_table_device,
         build_bucket_table_host,
         build_limbs_device,

@@ -7,8 +7,8 @@ import os
 
 import pytest
 
-from pysubstringsearch_tpu.ops import native
-from pysubstringsearch_tpu.ops.suffix_array import (
+from pysubstringsearch_jax.ops import native
+from pysubstringsearch_jax.ops.suffix_array import (
     suffix_array_jax,
     suffix_array_numpy,
 )
@@ -107,7 +107,7 @@ def test_rotating_segmented_kernel_matches_oracle():
     """The rotating windowed doubler (big-row derive kernel) matches the
     numpy oracle, including inputs that poison its lazy schedule."""
     import jax.numpy as jnp
-    from pysubstringsearch_tpu.ops.suffix_array import (
+    from pysubstringsearch_jax.ops.suffix_array import (
         _pad_len, segmented_rotating_sa,
     )
 
@@ -136,9 +136,9 @@ def test_rotating_kernel_poison_fallback_end_to_end():
     """An adversarial chunk (one repeated byte) must still produce correct
     results through the derive path (full-sort fallback engages)."""
     import jax.numpy as jnp
-    from pysubstringsearch_tpu.container import Chunk
-    from pysubstringsearch_tpu.models.index import DeviceIndex
-    from pysubstringsearch_tpu.ops.search import pack_patterns
+    from pysubstringsearch_jax.container import Chunk
+    from pysubstringsearch_jax.models.index import DeviceIndex
+    from pysubstringsearch_jax.ops.search import pack_patterns
 
     data = np.frombuffer(b'aaaaaaab' * 400 + b'\n', np.uint8)
     chunks = [Chunk(data=data, suffix_array=suffix_array_numpy(data))]
@@ -157,8 +157,8 @@ def test_segmented_ranked_init_matches_numpy():
     the plain segmented kernel and the numpy oracle."""
     import jax.numpy as jnp
 
-    from pysubstringsearch_tpu.ops import search as search_ops
-    from pysubstringsearch_tpu.ops.suffix_array import (
+    from pysubstringsearch_jax.ops import search as search_ops
+    from pysubstringsearch_jax.ops.suffix_array import (
         _pad_len,
         _segmented_kernel_ranked,
     )
@@ -196,14 +196,14 @@ def test_segmented_ranked_init_matches_numpy():
 def test_derive_sa_ranked_wrapper_matches_plain():
     import jax.numpy as jnp
 
-    from pysubstringsearch_tpu.ops import search as search_ops
+    from pysubstringsearch_jax.ops import search as search_ops
 
     rng = np.random.default_rng(9)
     data = rng.integers(97, 107, size=3000).astype(np.uint8)
     pres = np.bincount(data, minlength=256)[:256] > 0
     rank, _ = search_ops.alphabet_rank(pres)
     bits = search_ops.ranked_bits(int(pres.sum()))
-    from pysubstringsearch_tpu.ops.suffix_array import _pad_len
+    from pysubstringsearch_jax.ops.suffix_array import _pad_len
 
     N = _pad_len(data.size + search_ops.PAD_MARGIN)
     padded = np.zeros(N, dtype=np.uint8)
@@ -219,8 +219,8 @@ def test_derive_sa_ranked_wrapper_matches_plain():
 
 
 @pytest.mark.skipif(
-    os.environ.get('TPUSS_BIG_TESTS') != '1',
-    reason='~3 min / 10 GB RAM; set TPUSS_BIG_TESTS=1 (validated in round 5)',
+    os.environ.get('PSS_BIG_TESTS') != '1',
+    reason='~3 min / 10 GB RAM; set PSS_BIG_TESTS=1 (validated in round 5)',
 )
 def test_native_sa_beyond_mark_bit_budget():
     """n just past 2^30 exercises the UNFUSED level-0 path (the partial-sort
@@ -230,7 +230,7 @@ def test_native_sa_beyond_mark_bit_budget():
     oracle is infeasible at this size)."""
     import ctypes
 
-    from pysubstringsearch_tpu.ops import native as native_ops
+    from pysubstringsearch_jax.ops import native as native_ops
 
     lib = native_ops._load()
     if lib is None:
@@ -242,7 +242,7 @@ def test_native_sa_beyond_mark_bit_budget():
     blob = b' '.join(words) + b'\n'
     d = np.frombuffer(blob * (n // len(blob) + 1), dtype=np.uint8)[:n].copy()
     sa = np.empty(n, dtype=np.int32)
-    rc = lib.tpuss_build_sa_u8(
+    rc = lib.pss_build_sa_u8(
         d.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         ctypes.c_int32(n),
         sa.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
